@@ -1,4 +1,4 @@
-// Native PNG writer — the TPU framework's counterpart of the reference
+// Native PNG writer — this framework's counterpart of the reference
 // app's stb_image_write PNG output (app/main.cpp:339 stbi_write_png).
 //
 // Dependency-free: pixels are emitted as zlib "stored" (uncompressed)
@@ -6,7 +6,7 @@
 // filtering (filter 0) + CRC32. For a 1600x1063 RGB frame this writes in
 // a few milliseconds — PNG encode never gates the render loop.
 //
-// Exposed via ctypes (luisacomputegaussiansplatting_tpu/io/native.py):
+// Exposed via ctypes (luisacomputegaussiansplatting_jax/io/native.py):
 //   int write_png_rgb8(const char* path, const uint8_t* hwc,
 //                      int width, int height);
 // Returns 0 on success, negative errno-style codes on failure.

@@ -3,7 +3,7 @@
 import numpy as np
 import pytest
 
-from luisacomputegaussiansplatting_tpu.utils.camera import (
+from luisacomputegaussiansplatting_jax.utils.camera import (
     Camera,
     camera_matrices,
     look_at_camera,
@@ -104,7 +104,7 @@ def test_focal_and_fov():
 def test_rodrigues_axis_angle():
     """rotate_axis_angle / rotation_from_axis_angle (reference
     transform.hpp:100-160) agree with the quaternion path and each other."""
-    from luisacomputegaussiansplatting_tpu.utils.transform import (
+    from luisacomputegaussiansplatting_jax.utils.transform import (
         quaternion_from_axis_angle,
         rotate_axis_angle,
         rotation_from_axis_angle,

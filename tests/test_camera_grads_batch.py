@@ -1,6 +1,6 @@
 """Differentiable camera poses + vmapped multi-view batching.
 
-Both are TPU-native capabilities with no reference counterpart: the
+Both are capabilities with no reference counterpart: the
 CameraView is a traced pytree, so camera parameters take gradients (pose
 refinement / SLAM-style use) and whole view batches render under one
 vmap'd jit.
@@ -10,10 +10,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-from luisacomputegaussiansplatting_tpu.ops.render import render, render_view
-from luisacomputegaussiansplatting_tpu.utils.camera import (
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.ops.render import render, render_view
+from luisacomputegaussiansplatting_jax.utils.camera import (
     CameraView,
     look_at_camera,
 )

@@ -11,7 +11,7 @@ import os
 
 import numpy as np
 
-from luisacomputegaussiansplatting_tpu.io.dataset import (
+from luisacomputegaussiansplatting_jax.io.dataset import (
     load_colmap_text,
     load_nerf_synthetic,
     sphere_cameras,
@@ -107,8 +107,8 @@ def test_colmap_text_loader(tmp_path):
 
 
 def test_synthetic_multiview_targets_consistent():
-    from luisacomputegaussiansplatting_tpu.config import RenderConfig
-    from luisacomputegaussiansplatting_tpu.io.synthetic import create_cube_scene
+    from luisacomputegaussiansplatting_jax.config import RenderConfig
+    from luisacomputegaussiansplatting_jax.io.synthetic import create_cube_scene
 
     scene = create_cube_scene(nx=3)
     data = synthetic_multiview(
@@ -156,7 +156,7 @@ def _write_colmap_bin(root, w, h, f, qvec, tvec, img_name, points=None):
 
 
 def test_colmap_binary_loader(tmp_path):
-    from luisacomputegaussiansplatting_tpu.io.dataset import (
+    from luisacomputegaussiansplatting_jax.io.dataset import (
         load_colmap,
         load_colmap_points3d,
     )
@@ -191,7 +191,7 @@ def test_colmap_predownscaled_images_dir(tmp_path):
     while sparse/0 intrinsics describe FULL resolution: fy must be
     rescaled to the on-disk resolution, keeping fov resolution-invariant
     (graphdeco scene loader behavior)."""
-    from luisacomputegaussiansplatting_tpu.io.dataset import load_colmap
+    from luisacomputegaussiansplatting_jax.io.dataset import load_colmap
 
     w, h, f = 32, 24, 30.0
     _write_colmap_bin(tmp_path, w, h, f, (1, 0, 0, 0), (0, 0, -5), "img0.png")
@@ -209,7 +209,7 @@ def test_colmap_predownscaled_images_dir(tmp_path):
 
 def test_colmap_bin_and_text_models_agree(tmp_path):
     """The same model written as .bin and .txt loads identically."""
-    from luisacomputegaussiansplatting_tpu.io.dataset import load_colmap
+    from luisacomputegaussiansplatting_jax.io.dataset import load_colmap
 
     w, h, f = 16, 16, 20.0
     # a non-trivial pose: 90 deg about z plus offset
@@ -250,9 +250,9 @@ def test_loader_rows_match_render_orientation(tmp_path):
     training loss compares vertically mirrored images."""
     import jax.numpy as jnp
 
-    from luisacomputegaussiansplatting_tpu.config import RenderConfig
-    from luisacomputegaussiansplatting_tpu.ops.render import render_view
-    from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+    from luisacomputegaussiansplatting_jax.config import RenderConfig
+    from luisacomputegaussiansplatting_jax.ops.render import render_view
+    from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
     # one bright gaussian ABOVE the look-at target along camera-up (+z)
     w, h = 48, 48
@@ -306,7 +306,7 @@ def test_checkpoint_stale_tmp_files_ignored(tmp_path):
     latest_step must skip (and clean) it instead of raising ValueError."""
     import jax.numpy as jnp
 
-    from luisacomputegaussiansplatting_tpu.models.checkpoint import (
+    from luisacomputegaussiansplatting_jax.models.checkpoint import (
         CheckpointManager,
     )
 
@@ -325,7 +325,7 @@ def test_checkpoint_stale_tmp_files_ignored(tmp_path):
 def test_checkpoint_manager_roundtrip(tmp_path):
     import jax.numpy as jnp
 
-    from luisacomputegaussiansplatting_tpu.models.checkpoint import (
+    from luisacomputegaussiansplatting_jax.models.checkpoint import (
         CheckpointManager,
     )
 

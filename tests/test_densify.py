@@ -4,18 +4,18 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from luisacomputegaussiansplatting_tpu.models.densify import (
+from luisacomputegaussiansplatting_jax.models.densify import (
     DensifyConfig,
     accumulate_stats,
     densify_step,
     init_densify_state,
     reset_opacity,
 )
-from luisacomputegaussiansplatting_tpu.models.gaussians import (
+from luisacomputegaussiansplatting_jax.models.gaussians import (
     GaussianParams,
     pad_params_to,
 )
-from luisacomputegaussiansplatting_tpu.models.trainer import init_train_state
+from luisacomputegaussiansplatting_jax.models.trainer import init_train_state
 
 
 def make_params(n, capacity, scale=0.01, opacity_logit=2.0, seed=0):
@@ -225,14 +225,14 @@ def test_train_step_with_densify_fits():
     """End-to-end: train vs a 2-gaussian target, densify midway, loss drops."""
     import jax
 
-    from luisacomputegaussiansplatting_tpu.config import RenderConfig
-    from luisacomputegaussiansplatting_tpu.io.synthetic import create_cube_scene
-    from luisacomputegaussiansplatting_tpu.models.trainer import (
+    from luisacomputegaussiansplatting_jax.config import RenderConfig
+    from luisacomputegaussiansplatting_jax.io.synthetic import create_cube_scene
+    from luisacomputegaussiansplatting_jax.models.trainer import (
         TrainState,
         make_densify_train_step,
     )
-    from luisacomputegaussiansplatting_tpu.ops.render import render
-    from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+    from luisacomputegaussiansplatting_jax.ops.render import render
+    from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
     w = h = 64
     cfg = RenderConfig(max_pairs=20_000)
@@ -269,7 +269,7 @@ def test_ndc_grad_norm_scaling():
     graphdeco's NDC units (diff-gaussian-rasterization backward.cu
     dL_dmean2D), so DensifyConfig.grad_threshold=2e-4 is exact parity
     and resolution-independent."""
-    from luisacomputegaussiansplatting_tpu.models.densify import ndc_grad_norm
+    from luisacomputegaussiansplatting_jax.models.densify import ndc_grad_norm
 
     g = jnp.asarray([[3e-6, 4e-6], [1e-5, 0.0]], jnp.float32)
     # raw pixel units (no resolution given)

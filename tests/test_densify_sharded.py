@@ -7,15 +7,15 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from luisacomputegaussiansplatting_tpu.models.densify import (
+from luisacomputegaussiansplatting_jax.models.densify import (
     DensifyConfig,
     DensifyState,
     accumulate_stats,
     densify_step,
     init_densify_state,
 )
-from luisacomputegaussiansplatting_tpu.models.trainer import init_train_state
-from luisacomputegaussiansplatting_tpu.parallel.mesh import make_mesh
+from luisacomputegaussiansplatting_jax.models.trainer import init_train_state
+from luisacomputegaussiansplatting_jax.parallel.mesh import make_mesh
 
 from test_densify import make_params
 

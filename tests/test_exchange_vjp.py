@@ -1,8 +1,8 @@
-"""Unit tests for the scatter-free exchange VJPs (parallel/exchange_vjp).
+"""Unit tests for the exchange VJPs (parallel/exchange_vjp).
 
 Each op's custom VJP must equal the autodiff gradient of its plain
-jnp.take formulation (which XLA would lower to scatter-add on TPU — the
-whole point of the custom path is identical math, different movement).
+jnp.take formulation (which XLA would lower to scatter-add — the point
+of the custom path is identical math, different movement).
 Single-process CPU, no mesh: all ops except the all_to_all composite are
 collective-free.
 """
@@ -11,11 +11,9 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from luisacomputegaussiansplatting_tpu.parallel.exchange_vjp import (
+from luisacomputegaussiansplatting_jax.parallel.exchange_vjp import (
     _bucket_inverse,
     _invperm,
-    _pack_rows_bf16,
-    _unpack_rows_bf16,
     pack_gather,
     permute_rows,
     slice_buckets,
@@ -80,7 +78,7 @@ def test_permute_rows_matches_autodiff():
 
 
 def test_pack_gather_matches_autodiff():
-    from luisacomputegaussiansplatting_tpu.ops.binning import pack_ranges
+    from luisacomputegaussiansplatting_jax.ops.binning import pack_ranges
 
     rows = _rand((12, 3), seed=5)
     # sorted tiles with a sentinel tail (tile 4 = invalid for T=4)
@@ -125,12 +123,3 @@ def test_invperm():
     perm = jnp.asarray(np.random.default_rng(7).permutation(33), jnp.int32)
     inv = np.asarray(_invperm(perm))
     np.testing.assert_array_equal(np.asarray(perm)[inv], np.arange(33))
-
-
-def test_pack_unpack_rows_bf16_roundtrip():
-    rows = _rand((9, 9), seed=8)
-    packed = _pack_rows_bf16(rows)
-    assert packed.shape == (9, 5) and packed.dtype == jnp.int32
-    back = _unpack_rows_bf16(packed, 9)
-    exact = rows.astype(jnp.bfloat16).astype(jnp.float32)
-    np.testing.assert_array_equal(np.asarray(back), np.asarray(exact))

@@ -14,14 +14,14 @@ import jax
 import numpy as np
 import pytest
 
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import (
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import (
     create_cube_scene,
     random_scene,
 )
-from luisacomputegaussiansplatting_tpu.ops.render import render
-from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
-from luisacomputegaussiansplatting_tpu.utils.image import read_png
+from luisacomputegaussiansplatting_jax.ops.render import render
+from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
+from luisacomputegaussiansplatting_jax.utils.image import read_png
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 TOL = 1.5 / 255.0

@@ -15,10 +15,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-from luisacomputegaussiansplatting_tpu.ops.render import render
-from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.ops.render import render
+from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
 CAM = look_at_camera((2.5, -2.2, 1.8), (0, 0, 0), (0, 0, 1),
                      fov=70.0, width=48, height=32)
@@ -114,31 +114,10 @@ def test_finite_differences(grads, argnum):
             )
 
 
-def test_bf16_grad_reduce_close_to_f32():
-    """grad_reduce_dtype='bf16' (packed-pair reduction sort) must agree
-    with the exact f32 reduction to bf16 rounding noise."""
-    args = scene_arrays()
-    bg = jnp.zeros((3,), jnp.float32)
-    g32 = jax.jit(jax.grad(loss_fn(CFG_PALLAS), argnums=(0, 1, 2, 3, 4)))(
-        *args, bg
-    )
-    cfg16 = RenderConfig(max_pairs=10_000, grad_reduce_dtype="bf16")
-    g16 = jax.jit(jax.grad(loss_fn(cfg16), argnums=(0, 1, 2, 3, 4)))(
-        *args, bg
-    )
-    for name, a, b in zip("msqoh", g32, g16):
-        a, b = np.asarray(a), np.asarray(b)
-        scale = np.abs(a).max() + 1e-8
-        np.testing.assert_allclose(a / scale, b / scale, atol=2e-2,
-                                   err_msg=name)
-        # and it must not be trivially zero
-        assert np.abs(b).max() > 0
-
-
 def test_bg_gradient_exact(grads):
     args, bg, g_pallas, _ = grads
     # dL/dbg = sum over pixels of w_img * T  — check against aux T
-    from luisacomputegaussiansplatting_tpu.ops.render import render_aux
+    from luisacomputegaussiansplatting_jax.ops.render import render_aux
 
     rng = np.random.default_rng(0)
     wimg = np.asarray(
@@ -158,10 +137,10 @@ def test_backward_early_exit_on_saturated_tile():
     import jax.numpy as jnp
     import numpy as np
 
-    from luisacomputegaussiansplatting_tpu.config import RenderConfig
-    from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-    from luisacomputegaussiansplatting_tpu.ops.render import render
-    from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+    from luisacomputegaussiansplatting_jax.config import RenderConfig
+    from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+    from luisacomputegaussiansplatting_jax.ops.render import render
+    from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
     cam = look_at_camera((0, 0, -3.0), (0, 0, 0), (0, 1, 0),
                          fov=60.0, width=32, height=32)
@@ -191,25 +170,3 @@ def test_backward_early_exit_on_saturated_tile():
         assert np.isfinite(a).all()
         scale = np.abs(b).max() + 1e-8
         np.testing.assert_allclose(a / scale, b / scale, atol=2e-3)
-
-
-def test_blend_quad_mxu_grads_match_vpu():
-    """blend_quad='mxu' (conic quadratic + colour accumulation on the
-    MXU, ln-opacity folding, POWER_GUARD skip band) must reproduce the
-    vpu-path gradients to contraction-rounding noise. The two paths
-    share everything downstream of alpha, so any structural error in
-    the coefficient expansion shows as O(1) here."""
-    import dataclasses
-
-    args = scene_arrays()
-    bg = jnp.array([0.25, 0.5, 0.75], jnp.float32)
-    cfg_m = dataclasses.replace(CFG_PALLAS, blend_quad="mxu")
-    g_vpu = jax.grad(loss_fn(CFG_PALLAS), argnums=(0, 1, 2, 3, 4))(*args, bg)
-    g_mxu = jax.grad(loss_fn(cfg_m), argnums=(0, 1, 2, 3, 4))(*args, bg)
-    for name, a, b in zip(["means", "scales", "quats", "opac", "sh"],
-                          g_mxu, g_vpu):
-        a, b = np.asarray(a), np.asarray(b)
-        assert np.isfinite(a).all(), name
-        scale = np.abs(b).max() + 1e-6
-        np.testing.assert_allclose(a / scale, b / scale, atol=5e-4,
-                                   err_msg=name)

@@ -3,12 +3,12 @@
 import numpy as np
 import pytest
 
-from luisacomputegaussiansplatting_tpu.io.native import (
+from luisacomputegaussiansplatting_jax.io.native import (
     build_native,
     load_gsply_native,
 )
-from luisacomputegaussiansplatting_tpu.io.ply import load_ply, save_ply
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.io.ply import load_ply, save_ply
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
 
 
 @pytest.fixture(scope="module")
@@ -70,7 +70,7 @@ def test_native_png_writer_roundtrip(tmp_path):
     """C++ PNG writer output must decode back bit-exact (PIL as reader)."""
     import numpy as np
 
-    from luisacomputegaussiansplatting_tpu.io.native import write_png_native
+    from luisacomputegaussiansplatting_jax.io.native import write_png_native
 
     rng = np.random.default_rng(0)
     hwc = rng.integers(0, 256, (37, 53, 3), dtype=np.uint8)  # odd sizes
@@ -86,7 +86,7 @@ def test_native_png_writer_roundtrip(tmp_path):
 def test_write_png_uses_native(tmp_path):
     import numpy as np
 
-    from luisacomputegaussiansplatting_tpu.utils.image import read_png, write_png
+    from luisacomputegaussiansplatting_jax.utils.image import read_png, write_png
 
     img = np.clip(np.random.default_rng(1).random((3, 24, 40)), 0, 1).astype(
         np.float32

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from luisacomputegaussiansplatting_tpu.io.ply import load_ply, save_ply
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-from luisacomputegaussiansplatting_tpu.models.gaussians import GaussianScene
+from luisacomputegaussiansplatting_jax.io.ply import load_ply, save_ply
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.models.gaussians import GaussianScene
 
 
 def test_roundtrip(tmp_path):
@@ -56,7 +56,7 @@ def test_sh_rest_channel_major_layout(tmp_path):
     save_ply(scene, path)
 
     # parse the raw table directly and verify the column convention
-    from luisacomputegaussiansplatting_tpu.io.ply import _read_vertex_table
+    from luisacomputegaussiansplatting_jax.io.ply import _read_vertex_table
 
     cols, _ = _read_vertex_table(str(path))
     for c in range(3):

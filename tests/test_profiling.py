@@ -4,10 +4,10 @@
 loop, app/main.cpp:225,317-320 — stage attribution is framework-added.)
 """
 
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
-from luisacomputegaussiansplatting_tpu.utils.profiling import (
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
+from luisacomputegaussiansplatting_jax.utils.profiling import (
     backward_timings,
     stage_timings,
 )
@@ -26,12 +26,11 @@ def test_stage_timings_keys():
 
 def test_backward_timings_stages_production_config():
     """The VJP attribution must cover the production fast config
-    (fused sort, bf16 payload/reduce, rowgather, tile cull)."""
+    (fused sort, bf16 payload, tile cull)."""
     sc = random_scene(150, seed=2, scale_range=(0.02, 0.12))
     cfg = RenderConfig(max_pairs=30_000, tile=32, pack_mode="none",
                        tile_cull=True, sort_mode="fused",
-                       payload_dtype="bf16", grad_reduce_dtype="bf16",
-                       grad_reduce_method="rowgather")
+                       payload_dtype="bf16")
     out = backward_timings(sc, CAM, cfg, reps=2)
     for k in ("forward", "rast_bwd", "reduce_bwd", "params_bwd",
               "fwd_bwd_total"):

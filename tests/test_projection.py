@@ -3,13 +3,13 @@
 import numpy as np
 import pytest
 
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-from luisacomputegaussiansplatting_tpu.ops.projection import (
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.ops.projection import (
     project_gaussians,
     tile_grid,
 )
-from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
 from oracle import camera_mats, project_one, tile_rect
 

@@ -21,7 +21,7 @@ directory containing them:
 
 Equivalent CLI recipe (strict reference-parity mode):
 
-    python -m luisacomputegaussiansplatting_tpu.apps.render_cli \
+    python -m luisacomputegaussiansplatting_jax.apps.render_cli \
         --ply $LCGS_SCENE_DIR/nerf_blender_lego_30000.ply \
         --res 1600x1063 --cam-pos="-3,-0.5,2.3" --cam-target 0,0,0.5 \
         --world blender --ewa lcgs --rect lcgs --tile 16 --out /tmp/r
@@ -61,24 +61,22 @@ def _have(ply):
 def test_matches_reference_published_render(ply, golden, world_up):
     if not _have(ply):
         pytest.skip(
-            f"{ply} not present. CLOSED as environmentally impossible "
-            "(BASELINE.md round 5): the build env has zero egress (DNS "
+            f"{ply} not present: the build env has zero egress (DNS "
             "resolution fails; the GitHub release URLs in reference "
             "README.md:25-29 are unreachable by construction) and no "
             "local copy exists. External pixel parity is proxied by (1) "
-            "the strict-parity full-res render with num_rendered "
-            "IDENTICAL on TPU and CPU and max|diff| 0.6/255 "
-            "(docs/proof_r4), (2) golden pins vs the numpy oracle "
+            "the on-card kernel-vs-reference checks (chip_smoke.py), "
+            "(2) golden pins vs the numpy oracle "
             "(tests/test_golden.py), and (3) exact activation/pose/"
             "constant parity cited per reference file:line throughout. "
             "Set LCGS_SCENE_DIR to run this test when the PLYs exist."
         )
     from PIL import Image
 
-    from luisacomputegaussiansplatting_tpu.config import RenderConfig
-    from luisacomputegaussiansplatting_tpu.io.ply import load_ply
-    from luisacomputegaussiansplatting_tpu.ops.render import render_aux
-    from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+    from luisacomputegaussiansplatting_jax.config import RenderConfig
+    from luisacomputegaussiansplatting_jax.io.ply import load_ply
+    from luisacomputegaussiansplatting_jax.ops.render import render_aux
+    from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
     w, h = 1600, 1063  # main.cpp:38
     scene = load_ply(os.path.join(SCENE_DIR, ply))

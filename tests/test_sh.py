@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from luisacomputegaussiansplatting_tpu.ops.sh_eval import compute_colors
-from luisacomputegaussiansplatting_tpu.utils.sh import (
+from luisacomputegaussiansplatting_jax.ops.sh_eval import compute_colors
+from luisacomputegaussiansplatting_jax.utils.sh import (
     eval_sh_color,
     num_sh_coeffs,
     sh_from_color,

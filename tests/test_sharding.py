@@ -7,21 +7,21 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-from luisacomputegaussiansplatting_tpu.models.trainer import (
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.models.trainer import (
     init_train_state,
 )
-from luisacomputegaussiansplatting_tpu.ops.render import render
-from luisacomputegaussiansplatting_tpu.parallel.mesh import make_mesh
-from luisacomputegaussiansplatting_tpu.parallel.render_sharded import (
+from luisacomputegaussiansplatting_jax.ops.render import render
+from luisacomputegaussiansplatting_jax.parallel.mesh import make_mesh
+from luisacomputegaussiansplatting_jax.parallel.render_sharded import (
     ShardedRenderConfig,
     render_sharded,
 )
-from luisacomputegaussiansplatting_tpu.parallel.train_sharded import (
+from luisacomputegaussiansplatting_jax.parallel.train_sharded import (
     make_sharded_train_step,
 )
-from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
 CAM = look_at_camera((3.0, -2.5, 2.0), (0, 0, 0), (0, 0, 1),
                      fov=70.0, width=64, height=64)
@@ -125,7 +125,7 @@ def test_sharded_grads_match_single(scene):
 
 @pytest.mark.parametrize("pack", ["chunk", "none"])
 def test_sharded_bf16_exchange_matches_single_chip_bf16(scene, pack):
-    """payload_dtype="bf16" sharded: the packed ICI exchange rounds
+    """payload_dtype="bf16" sharded: the packed exchange rounds
     opacity/rgb exactly like the single-chip bf16 gather and delivers
     entries in the same merged order, so the images must match the
     single-chip bf16 render; gradients (through the composite custom
@@ -170,48 +170,35 @@ def test_sharded_bf16_exchange_matches_single_chip_bf16(scene, pack):
                                    err_msg=name)
 
 
-def test_sharded_bf16_grad_exchange_close_to_f32(scene):
-    """grad_reduce_dtype="bf16" on the packed exchange: the reverse
-    (cotangent) ICI leg rounds to bf16 pairs; gradients stay within
-    bf16 rounding of the f32-cotangent exchange."""
-    mesh = make_mesh((8,), ("gs",))
-    rng = np.random.default_rng(5)
-    wimg = jnp.asarray(
-        rng.normal(size=(3, CAM.height, CAM.width)), jnp.float32
-    )
+def _float_scatters(hlo: str):
+    return [ln.strip() for ln in hlo.splitlines()
+            if " scatter(" in ln and ("f32[" in ln or "bf16[" in ln)]
 
-    def loss(gd):
-        cfg = RenderConfig(max_pairs=20_000, tile=32, pack_mode="none",
-                           payload_dtype="bf16", grad_reduce_dtype=gd)
 
-        def f(*args):
-            img, _ = render_sharded(*args, CAM, mesh, cfg=cfg, scfg=SCFG)
-            return jnp.sum(img * wimg)
-
-        return jax.jit(jax.grad(f, argnums=(0, 3)))(*scene.render_args())
-
-    g_f32 = loss("f32")
-    g_bf16 = loss("bf16")
-    for name, a, b in zip("mo", g_bf16, g_f32):
-        a, b = np.asarray(a), np.asarray(b)
-        assert np.all(np.isfinite(a))
-        scale = np.abs(b).max() + 1e-8
-        assert np.abs(a - b).max() / scale < 2e-2, name
+def _assert_scatters_are_segment_sums(hlo: str, what: str):
+    """Every float scatter in the compiled program is the per-gaussian
+    gradient segment-sum (ops.render.reduce_rows_by_id, named scope
+    "grad_reduce"); every other gather in the exchange has a structured
+    inverse (parallel/exchange_vjp.py) and must not lower to a scatter."""
+    scatters = _float_scatters(hlo)
+    assert scatters, f"{what}: no gradient segment-sum found"
+    stray = [ln[:160] for ln in scatters if "grad_reduce" not in ln]
+    assert not stray, f"{what}: {stray}"
 
 
 def test_sharded_backward_has_no_scatter(scene):
-    """The sharded backward must move gradients with sorts + row gathers
-    only: every exchange gather carries a scatter-free custom VJP
-    (parallel/exchange_vjp.py). A plain jnp.take VJP would lower to XLA
-    scatter-add (~100 ns/row on TPU, the op this framework bans)."""
-    for pack, pdt, gdt in (
-        ("chunk", "f32", "f32"),
-        ("none", "f32", "bf16"),
-        ("chunk", "bf16", "bf16"),  # the packed-exchange composite VJP
-        ("none", "bf16", "f32"),
+    """The sharded backward moves gradients with sorts + row gathers, and
+    its only float scatters are the per-gaussian gradient segment-sums:
+    every exchange gather carries a custom VJP with a structured inverse
+    (parallel/exchange_vjp.py)."""
+    for pack, pdt in (
+        ("chunk", "f32"),
+        ("none", "f32"),
+        ("chunk", "bf16"),  # the packed-exchange composite VJP
+        ("none", "bf16"),
     ):
         cfg = RenderConfig(max_pairs=20_000, tile=32, pack_mode=pack,
-                           payload_dtype=pdt, grad_reduce_dtype=gdt)
+                           payload_dtype=pdt)
         mesh = make_mesh((8,), ("gs",))
 
         def loss(*args):
@@ -224,15 +211,7 @@ def test_sharded_backward_has_no_scatter(scene):
             .compile()
             .as_text()
         )
-        # the ban is on FLOAT scatters (gradient accumulation); the one
-        # legitimate scatter is pack_ranges' s32 scatter-max forward-fill
-        # (a tiles-sized structural op, ops/binning.py:59)
-        scatters = [
-            ln.strip()[:100]
-            for ln in hlo.splitlines()
-            if " scatter(" in ln and ("f32[" in ln or "bf16[" in ln)
-        ]
-        assert not scatters, f"pack={pack}/{pdt}/{gdt}: {scatters}"
+        _assert_scatters_are_segment_sums(hlo, f"pack={pack}/{pdt}")
 
 
 def test_uneven_band_split(scene):
@@ -299,10 +278,10 @@ def test_sharded_loss_equals_single_chip_dssim(scene):
     """The sharded loss is the full (1-w)L1 + w D-SSIM with exact 11x11
     windows across band seams (5-row ppermute halos) — it must equal the
     single-chip d_ssim_l1_loss to float precision."""
-    from luisacomputegaussiansplatting_tpu.models.losses import (
+    from luisacomputegaussiansplatting_jax.models.losses import (
         d_ssim_l1_loss,
     )
-    from luisacomputegaussiansplatting_tpu.models.trainer import TrainConfig
+    from luisacomputegaussiansplatting_jax.models.trainer import TrainConfig
 
     mesh = make_mesh((2, 4), ("data", "gs"))
     step_fn, opt, pad_targets = make_sharded_train_step(
@@ -341,10 +320,10 @@ def test_sharded_loss_equals_single_chip_dssim(scene):
 def test_sharded_loss_halo_exactness_uneven_band(scene):
     """Height where the last band is partially outside the image: the
     SSIM halo/masking must still reproduce the single-chip loss."""
-    from luisacomputegaussiansplatting_tpu.models.losses import (
+    from luisacomputegaussiansplatting_jax.models.losses import (
         d_ssim_l1_loss,
     )
-    from luisacomputegaussiansplatting_tpu.models.trainer import TrainConfig
+    from luisacomputegaussiansplatting_jax.models.trainer import TrainConfig
 
     cam = CAM.resized(64, 48)  # 3 tile rows over 4 gs devices
     mesh = make_mesh((2, 4), ("data", "gs"))
@@ -374,7 +353,7 @@ def test_sharded_loss_halo_exactness_uneven_band(scene):
 def test_sharded_densify_step_accumulates_stats(scene):
     """densify=True: probe gradients / visibility / radii accumulate like
     the single-chip batched step, and the active mask culls."""
-    from luisacomputegaussiansplatting_tpu.models.densify import (
+    from luisacomputegaussiansplatting_jax.models.densify import (
         init_densify_state,
     )
 
@@ -445,9 +424,9 @@ def test_exchange_capacity_overflow_flagged_and_recoverable():
 def test_sharded_train_step_has_no_scatter(scene):
     """The render-only scatter scan (above) misses the training step's
     extra gradient consumers (the means2d probe for densify stats, the
-    halo-exchanged D-SSIM loss): assert the FULL densify train step's
-    compiled backward is scatter-free too."""
-    from luisacomputegaussiansplatting_tpu.models.densify import (
+    halo-exchanged D-SSIM loss): in the FULL densify train step too,
+    every float scatter is a per-gaussian gradient segment-sum."""
+    from luisacomputegaussiansplatting_jax.models.densify import (
         init_densify_state,
     )
 
@@ -473,20 +452,15 @@ def test_sharded_train_step_has_no_scatter(scene):
         .compile()
         .as_text()
     )
-    scatters = [
-        ln.strip()[:100]
-        for ln in hlo.splitlines()
-        if " scatter(" in ln and ("f32[" in ln or "bf16[" in ln)
-    ]
-    assert not scatters, scatters
+    _assert_scatters_are_segment_sums(hlo, "train step")
 
 
 def test_exchange_capacity_auto_derivation(scene):
     """exchange_capacity=None derives a CHUNK-aligned skew-headroom
-    default from max_pairs_local (BASELINE.md round-4 skew measurement)
-    and renders identically to an explicit capacity."""
-    from luisacomputegaussiansplatting_tpu.config import CHUNK
-    from luisacomputegaussiansplatting_tpu.parallel.render_sharded import (
+    default from max_pairs_local and renders identically to an explicit
+    capacity."""
+    from luisacomputegaussiansplatting_jax.config import CHUNK
+    from luisacomputegaussiansplatting_jax.parallel.render_sharded import (
         derive_exchange_capacity,
     )
 
@@ -514,12 +488,10 @@ def test_exchange_capacity_auto_derivation(scene):
 def test_exchange_capacity_scales_with_mesh_size():
     """The auto-derived bucket capacity shrinks ~1/ndev while the TOTAL
     per-chip exchange buffer (ndev * capacity) stays flat at
-    ~skew * max_pairs_local rows — the invariant behind the flat
-    per-chip ICI traffic measured in scripts/perf/ici_traffic.py
-    (BASELINE.md round 5): scaling devices must not scale per-chip
-    all-to-all bytes."""
-    from luisacomputegaussiansplatting_tpu.config import CHUNK
-    from luisacomputegaussiansplatting_tpu.parallel.render_sharded import (
+    ~skew * max_pairs_local rows: scaling devices must not scale
+    per-device all-to-all bytes."""
+    from luisacomputegaussiansplatting_jax.config import CHUNK
+    from luisacomputegaussiansplatting_jax.parallel.render_sharded import (
         derive_exchange_capacity,
     )
 
@@ -534,27 +506,3 @@ def test_exchange_capacity_scales_with_mesh_size():
         assert a * caps[a] >= mpl * skew - CHUNK
         assert b * caps[b] >= mpl * skew - CHUNK
         assert b * caps[b] <= mpl * skew + b * CHUNK
-
-
-def test_sharded_blend_quad_mxu_matches_single(scene):
-    """blend_quad='mxu' flows through render_sharded untouched (the
-    sharded band rasterizer calls the same kernels): sharded-mxu must
-    match single-chip-mxu exactly, and single-chip-vpu to contraction
-    noise."""
-    import dataclasses
-
-    cfg = dataclasses.replace(
-        RenderConfig(max_pairs=20_000, tile=32, pack_mode="none"),
-        blend_quad="mxu")
-    mesh = make_mesh((8,), ("gs",))
-    bg = jnp.zeros((3,), jnp.float32)
-    img_s, aux = render_sharded(*scene.render_args(), CAM, mesh, cfg=cfg,
-                                scfg=SCFG, bg_color=bg)
-    assert not bool(aux.overflow)
-    img_m = render(*scene.render_args(), CAM, bg_color=bg, cfg=cfg)
-    np.testing.assert_allclose(np.asarray(img_s), np.asarray(img_m),
-                               atol=2e-5)
-    img_v = render(*scene.render_args(), CAM, bg_color=bg,
-                   cfg=dataclasses.replace(cfg, blend_quad="vpu"))
-    np.testing.assert_allclose(np.asarray(img_s), np.asarray(img_v),
-                               atol=5e-4)

@@ -12,10 +12,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-from luisacomputegaussiansplatting_tpu.ops.render import render
-from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.ops.render import render
+from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
 CAM = look_at_camera(
     (3.0, -2.5, 2.0), (0, 0, 0), (0, 0, 1), fov=70.0, width=128, height=96
@@ -34,7 +34,7 @@ def test_tile32_matches_tile16():
 
 
 def test_rect_tile_32x16_matches_tile16():
-    """Rectangular 32x16 tiles (the v5e production config: fewer pixels
+    """Rectangular 32x16 tiles (fewer pixels
     blended per entry at modest extra entries) render within the same
     sub-cutoff tail tolerance, including with the ellipse cull +
     post-sort trim on."""

@@ -4,21 +4,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import random_scene
-from luisacomputegaussiansplatting_tpu.models.losses import (
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import random_scene
+from luisacomputegaussiansplatting_jax.models.losses import (
     d_ssim_l1_loss,
     l1_loss,
     psnr,
     ssim,
 )
-from luisacomputegaussiansplatting_tpu.models.trainer import (
+from luisacomputegaussiansplatting_jax.models.trainer import (
     TrainConfig,
     init_train_state,
     make_train_step,
 )
-from luisacomputegaussiansplatting_tpu.ops.render import render
-from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+from luisacomputegaussiansplatting_jax.ops.render import render
+from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
 
 def test_ssim_identity():
@@ -85,16 +85,16 @@ def test_batched_train_step_fits():
     import jax.numpy as jnp
     import numpy as np
 
-    from luisacomputegaussiansplatting_tpu.config import RenderConfig
-    from luisacomputegaussiansplatting_tpu.io.dataset import synthetic_multiview
-    from luisacomputegaussiansplatting_tpu.io.synthetic import create_cube_scene
-    from luisacomputegaussiansplatting_tpu.models.densify import (
+    from luisacomputegaussiansplatting_jax.config import RenderConfig
+    from luisacomputegaussiansplatting_jax.io.dataset import synthetic_multiview
+    from luisacomputegaussiansplatting_jax.io.synthetic import create_cube_scene
+    from luisacomputegaussiansplatting_jax.models.densify import (
         init_densify_state,
     )
-    from luisacomputegaussiansplatting_tpu.models.gaussians import (
+    from luisacomputegaussiansplatting_jax.models.gaussians import (
         pad_params_to,
     )
-    from luisacomputegaussiansplatting_tpu.models.trainer import (
+    from luisacomputegaussiansplatting_jax.models.trainer import (
         init_train_state,
         make_batched_train_step,
     )
@@ -137,17 +137,17 @@ def test_overflowing_step_is_detected():
     this framework's overflow story must hold in training too)."""
     import jax
 
-    from luisacomputegaussiansplatting_tpu.config import RenderConfig
-    from luisacomputegaussiansplatting_tpu.io.synthetic import create_cube_scene
-    from luisacomputegaussiansplatting_tpu.models.densify import (
+    from luisacomputegaussiansplatting_jax.config import RenderConfig
+    from luisacomputegaussiansplatting_jax.io.synthetic import create_cube_scene
+    from luisacomputegaussiansplatting_jax.models.densify import (
         init_densify_state,
     )
-    from luisacomputegaussiansplatting_tpu.models.trainer import (
+    from luisacomputegaussiansplatting_jax.models.trainer import (
         init_train_state,
         make_batched_train_step,
         make_densify_train_step,
     )
-    from luisacomputegaussiansplatting_tpu.utils.camera import look_at_camera
+    from luisacomputegaussiansplatting_jax.utils.camera import look_at_camera
 
     w = h = 48
     cfg = RenderConfig(max_pairs=16)  # far too small on purpose (27

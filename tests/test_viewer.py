@@ -13,12 +13,12 @@ from http.server import ThreadingHTTPServer
 import numpy as np
 import pytest
 
-from luisacomputegaussiansplatting_tpu.apps.viewer import (
+from luisacomputegaussiansplatting_jax.apps.viewer import (
     ViewerServer,
     make_handler,
 )
-from luisacomputegaussiansplatting_tpu.config import RenderConfig
-from luisacomputegaussiansplatting_tpu.io.synthetic import create_cube_scene
+from luisacomputegaussiansplatting_jax.config import RenderConfig
+from luisacomputegaussiansplatting_jax.io.synthetic import create_cube_scene
 
 
 @pytest.fixture(scope="module")
@@ -46,7 +46,7 @@ def test_page_served(viewer):
     with urllib.request.urlopen(viewer + "/") as r:
         body = r.read().decode()
     assert r.status == 200
-    assert "lcgs-tpu viewer" in body
+    assert "lcgs viewer" in body
     assert "/frame?" in body  # the JS render loop
 
 
@@ -87,7 +87,7 @@ def test_frame_is_upright():
     flip to the upright convention like render_cli's PNGs)."""
     import jax.numpy as jnp
 
-    from luisacomputegaussiansplatting_tpu.models.gaussians import (
+    from luisacomputegaussiansplatting_jax.models.gaussians import (
         GaussianScene,
     )
 
